@@ -21,7 +21,7 @@
 // Jacobian) the math necessarily matches.
 //
 // The pose solver is also exported with a C ABI (baseline_solve_pose) so the
-// Python test suite can check the TPU solver against reference semantics on
+// Python test suite can check the JAX solver against reference semantics on
 // identical correspondences.
 //
 // Build: see build.sh (binary rso_baseline + shared lib librso_baseline.so).

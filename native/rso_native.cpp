@@ -3,7 +3,7 @@
 // The reference implements its pixel kernels in C++ (stereo_vo
 // compute_SAD8.cpp, tracking_SAD.cpp, and MRPT's FASTER detector); this
 // library provides freshly written equivalents with the same contracts so
-// the TPU kernels can be cross-checked against an independent native
+// the JAX kernels can be cross-checked against an independent native
 // implementation (the reference repo's own scalar-vs-SSE4 equivalence test
 // pattern, computeSAD8_unittest.cpp:61-76, applied across languages).
 //
@@ -122,7 +122,7 @@ uint32_t rso_tracking_sad(const uint8_t* img, int stride, int width,
   return best;
 }
 
-// Scalar FAST-N segment-test detector (the oracle for the dense TPU corner
+// Scalar FAST-N segment-test detector (the oracle for the dense JAX corner
 // test).  Writes up to max_out (x, y) int32 pairs; returns the count of
 // corners found (which may exceed max_out).
 int rso_fast_detect(const uint8_t* img, int stride, int width, int height,

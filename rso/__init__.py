@@ -1,4 +1,4 @@
-"""rso — TPU-native robust stereo visual odometry framework.
+"""rso — robust stereo visual odometry in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 famoreno/stereo-vo ("Robust Stereo Odometry"): rectify -> detect ->
@@ -11,12 +11,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# On TPU, f32 matmuls/einsums default to bf16 MXU passes (~3 decimal digits).
-# That is the right trade for neural nets but wrong for this library's
-# geometry: an 8-bit mantissa on ~1000-px coordinates is a multi-pixel error,
-# which visibly degrades RANSAC gating and the GN normal equations (bench ATE
-# 0.22 -> 0.14 m on the same scene after this switch).  Paths that *want*
-# reduced precision (the MXU patch-distance shortlist) cast to bf16
+# On a GPU, f32 matmuls/einsums default to TF32 on the tensor cores (a
+# 10-bit mantissa, ~3 decimal digits).  That is the right trade for neural
+# nets but wrong for this library's geometry: ~1000-px coordinates lose
+# whole pixels, which degrades RANSAC gating and the GN normal equations.
+# "highest" keeps them in full f32.  Paths that *want* reduced precision
+# (the squared-L2 shortlist's ranking matmul) pass Precision.DEFAULT
 # explicitly and are unaffected.
 _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -137,7 +137,8 @@ def _project_grid(cam: StereoCamera, poses, lmks):
 
 def inv3x3(M):
     """Closed-form batched 3x3 inverse (adjugate/det).  jnp.linalg.inv lowers
-    to per-matrix LU on TPU, which is ~50x slower for [L,3,3] stacks."""
+    to a per-matrix LU factorization; the adjugate is a few fused
+    elementwise ops."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]

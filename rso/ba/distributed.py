@@ -1,12 +1,13 @@
 """Distributed sliding-window BA: landmark-sharded Schur reduction on a mesh.
 
-The multi-chip story (SURVEY.md sections 2.5 and 5): landmarks shard across
-the mesh's 'lmk' axis; every device assembles the normal-equation blocks for
-its landmark shard, the reduced camera system is formed by an all-reduce
-(psum over ICI) of the per-shard Schur contributions, the small [P*6, P*6]
-solve runs replicated on every device, and landmark back-substitution is
-purely local to each shard.  No hand-written transport — jax.lax.psum inside
-shard_map, scheduled by XLA over ICI (or DCN across slices).
+The multi-device story (SURVEY.md sections 2.5 and 5): landmarks shard
+across the mesh's 'lmk' axis; every device assembles the normal-equation
+blocks for its landmark shard, the reduced camera system is formed by an
+all-reduce (psum) of the per-shard Schur contributions, the small
+[P*6, P*6] solve runs replicated on every device, and landmark
+back-substitution is purely local to each shard.  No hand-written
+transport — jax.lax.psum inside shard_map, which XLA hands to NCCL on GPUs
+(NVLink between the cards of one host).
 
 Communication cost per LM iteration: one psum of P*P*36 + P*6 floats
 (window of 8 keyframes -> ~9 KB), independent of the landmark count — the

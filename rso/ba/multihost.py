@@ -1,13 +1,12 @@
 """Multi-host initialization helpers.
 
-On a real pod slice each host runs the same program; `jax.distributed`
-wires the process group and `jax.devices()` spans every chip, so the
-landmark mesh in rso.ba.distributed automatically covers all hosts — XLA
-routes the psum over ICI within a slice and DCN across slices.  Nothing
-else in the framework changes per-host.
+Across hosts each host runs the same program; `jax.distributed` wires the
+process group (give it coordinator_address, num_processes and process_id)
+and `jax.devices()` spans every device, so the landmark mesh in
+rso.ba.distributed covers all hosts — XLA routes the psum over the links
+between them.  Nothing else in the framework changes per host.
 
-This environment exposes a single chip, so multi-host runs are validated
-with multi-process CPU (tests/test_multihost.py drives two OS processes
+Multi-host runs are validated with multi-process CPU (tests/test_multihost.py drives two OS processes
 with a shared coordinator, the jax.distributed equivalent of the
 reference's absent MPI layer).
 """

@@ -2,8 +2,8 @@
 
 The library form of the pipeline tools/eval_global_refine.py measures: a
 completed VO run's keyframes split into overlapping windows, ALL windows
-solve concurrently over a ('win','lmk') mesh (rso.ba.window_sharded — hosts
-along 'win', chips along 'lmk', zero steady-state DCN traffic), the solved
+solve concurrently over a ('win','lmk') mesh (rso.ba.window_sharded — no
+communication between windows inside the LM loop), the solved
 windows stitch back into one trajectory, and each keyframe's correction
 propagates to the frames that follow it.
 

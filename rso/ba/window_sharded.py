@@ -1,21 +1,21 @@
-"""Window-sharded multi-host BA: windows across hosts, landmarks within one.
+"""Window-sharded BA: independent windows over one mesh axis, landmarks
+over the other.
 
-The round-3 communication accounting (BASELINE.md "Distributed-BA scaling")
-showed landmark sharding rides ICI at 96-99.7% modeled efficiency but decays
-to 66% at 4 hosts over DCN: the reduced-camera psum pays cross-host latency
-EVERY LM iteration.  The prescribed fix, implemented here: across hosts shard
-the WINDOW axis — window problems are independent (the sliding-window
-pipeline emits one per keyframe; offline long-sequence refinement solves many
-at once, reference analogue SURVEY.md §5 "long-context"), so steady-state DCN
-traffic is ZERO — the only cross-host communication is the initial scatter
-and the final gather of problem/solution arrays.  Landmarks still shard over
-the intra-host ICI axis, where the per-iteration [P*6,P*6]+[P*6] psum is
-nearly free.
+Landmark sharding (rso.ba.distributed) pays one reduced-camera psum every
+LM iteration.  Window problems are independent (the sliding-window pipeline
+emits one per keyframe; offline long-sequence refinement solves many at
+once, reference analogue SURVEY.md §5 "long-context"), so sharding the
+WINDOW axis needs no communication inside the LM loop at all — only the
+initial scatter and the final gather of problem/solution arrays.  Landmarks
+of each window still shard over the second axis, where the per-iteration
+[P*6,P*6]+[P*6] psum is small.
 
-Mesh layout: 2-D ('win', 'lmk') — 'win' maps to the DCN (host) dimension,
-'lmk' to each host's local chips.  tools/eval_ba_comm.py verifies from the
-compiled HLO that every collective's replica group stays within one 'lmk'
-row (no cross-'win' traffic inside the LM loop).
+Mesh layout: 2-D ('win', 'lmk').  The mesh follows the algorithm: cards
+joined all to all (NVLink on one host) need no topology-aware placement,
+and across hosts 'win' is the axis to lay over the slower link.
+tests/test_window_sharded.py checks from the compiled HLO that every
+collective's replica group stays within one 'lmk' row (no cross-'win'
+traffic inside the LM loop).
 """
 from __future__ import annotations
 
@@ -41,9 +41,9 @@ from rso.geometry.stereo_camera import StereoCamera
 
 def make_win_mesh(n_hosts: int, chips_per_host: int | None = None,
                   devices=None) -> Mesh:
-    """('win','lmk') mesh: hosts along 'win' (DCN), local chips along 'lmk'
-    (ICI).  On a real pod pass jax.devices() so the host dimension lines up
-    with actual processes; on the virtual CPU mesh any reshape works."""
+    """('win','lmk') mesh of n_hosts x chips_per_host devices.  Across hosts
+    pass jax.devices() so 'win' lines up with processes; within one host
+    (all-to-all links) or on a virtual CPU mesh any reshape works."""
     devs = np.asarray(devices if devices is not None else jax.devices())
     if chips_per_host is None:
         chips_per_host = len(devs) // n_hosts

@@ -5,7 +5,7 @@ The baseline library is a faithful OpenCV port of the reference pipeline
 this image).  Two uses:
   * tools/measure_baseline.py measures its FPS/ATE on the bench scenes
     (the denominator of bench.py's vs_baseline), via the standalone binary;
-  * the test suite checks the TPU solver against reference solver semantics
+  * the test suite checks the JAX solver against reference solver semantics
     on identical correspondences (baseline_solve_pose below).
 """
 from __future__ import annotations

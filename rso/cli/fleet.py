@@ -142,6 +142,9 @@ def _load_sequences(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from rso import compile_cache
+
+    compile_cache.enable()
 
     from rso.config import load_config
     from rso.geometry import pose_matrix

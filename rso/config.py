@@ -1,12 +1,12 @@
-"""Typed, frozen configuration tree for the RSO-TPU engine.
+"""Typed, frozen configuration tree for the rso engine.
 
 Mirrors the reference's seven parameter structs and INI sections
 (reference: libstereo-odometry/include/libstereo-odometry.h:554-663, defaults in
 stage1_rectify.cpp:27-30, stage2_detect.cpp:44-58, stage3_match_left_right.cpp:46-57,
 common.cpp:69-84, process_new_image_pair.cpp:34-35) with identical key names so
-reference INI files load unchanged.  Extended with a [TPU] section holding the
-static capacities that make every per-frame array shape-stable (the TPU-native
-replacement for the reference's dynamic std::vectors).
+reference INI files load unchanged.  Extended with an [ENGINE] section holding the
+static capacities that make every per-frame array shape-stable (the
+fixed-shape replacement for the reference's dynamic std::vectors).
 
 All dataclasses are frozen + hashable so a config can be a `static_argnum` of a
 jitted step function.
@@ -93,7 +93,7 @@ class DetectParams:
     # the stage-2 call flag (reference h:1020, default false): enables the
     # per-octave FAST threshold servo toward target_feats_per_pixel
     update_dyn_thresholds: bool = False
-    # TPU extension: upright (unrotated) BRIEF.  The intensity-centroid
+    # rso extension: upright (unrotated) BRIEF.  The intensity-centroid
     # orientation is only stable on asymmetric patches; for low-roll rigs
     # (automotive / rectified stereo) upright descriptors match more
     # reliably.  Default False = ORB-faithful oriented BRIEF.
@@ -115,7 +115,7 @@ class LeftRightMatchParams:
     max_y_diff: float = 0.0
     min_z: float = 0.3
     max_z: float = 5.0
-    # TPU extension: actually enforce the min_z/max_z depth gate as disparity
+    # rso extension: actually enforce the min_z/max_z depth gate as disparity
     # bounds.  The reference declares min_z/max_z (h:497) but hardcodes the
     # disparity window to [1, 0.7*W] (stage3:155-156 comments show the intent);
     # off by default for reference-faithful behavior.
@@ -155,7 +155,7 @@ class LeastSquaresParams:
     bad_tracking_th: int = 5
     use_previous_pose_as_initial: bool = True
     use_custom_initial_pose: bool = False
-    # TPU extension: weight the Hessian by the robust-kernel derivative rho'
+    # rso extension: weight the Hessian by the robust-kernel derivative rho'
     # as well as the gradient (proper IRLS).  The reference weights only the
     # gradient (stage5_optimization.cpp:364-365), which scales GN steps by
     # rho' (~0.03 for large residuals) and stalls cold starts.  Both schemes
@@ -163,13 +163,13 @@ class LeastSquaresParams:
     # same; this only changes the path.  Set False for exact reference
     # iteration behavior.
     irls_hessian_weighting: bool = True
-    # TPU extension: Levenberg-Marquardt damping in the pose solver (the
+    # rso extension: Levenberg-Marquardt damping in the pose solver (the
     # BASELINE "robust LM pose refinement" configuration).  lambda adapts
     # per accepted/rejected step; False = pure Gauss-Newton like the
     # reference.
     use_lm: bool = False
     lm_init_lambda: float = 1e-3
-    # TPU extension: how the 6x6 normal system solves each GN iteration.
+    # rso extension: how the 6x6 normal system solves each GN iteration.
     #   "eigh" — symmetric eigendecomposition + exact cond_2 guard +
     #            pseudo-inverse thresholding (mirrors the reference's
     #            JacobiSVD semantics, stage5_optimization.cpp:375-388).
@@ -178,10 +178,6 @@ class LeastSquaresParams:
     #            6x6).  Identical dx for the well-conditioned systems real
     #            frames produce (H is PD there); near the abort threshold
     #            borderline frames may flag one iteration earlier/later.
-    #            Measured on v5e: the eigh solve+guard costs 5.2 us of the
-    #            15.8 us GN iteration (tools/exp_eigh_cost.py); the step
-    #            A/B (tools/exp_chol_ab.py, 8 interleaved rounds) reads
-    #            -1.9% median step (0.948 -> 0.930 ms, 6/8 rounds negative).
     #            Default "chol": same pose to ~1e-7 on real solves and the
     #            same error code on degenerate input (equivalence pinned in
     #            tests/test_solver.py::TestSolveBackends); set "eigh" for
@@ -193,7 +189,7 @@ class LeastSquaresParams:
 class GUIParams:
     """[GUI] — reference TGUIParams (gui_thread.cpp:34-40).
 
-    The TPU build has no interactive window; these flags gate the offline
+    rso has no interactive window; these flags gate the offline
     visualization writer (rso.metrics.viz) instead.
     """
 
@@ -225,8 +221,8 @@ class GeneralParams:
 
 
 @dataclass(frozen=True)
-class TPUParams:
-    """[TPU] — static capacities & numerics (no reference equivalent; this is the
+class EngineParams:
+    """[ENGINE] — static capacities & numerics (no reference equivalent; this is the
     fixed-shape contract that replaces dynamic std::vector sizes everywhere)."""
 
     max_kps_per_octave: int = 512      # K: feature slots per image per octave
@@ -241,8 +237,7 @@ class TPUParams:
     # pool must be deep enough that the best model is never merely mediocre —
     # a bad accepted model erases the track set (ATE collapse measured at 64
     # on the bench scenes).  256 vs 128: -7.8% mean ATE on 3 scene seeds
-    # (every seed improves; tools/exp_ate_levers.py) for +0.026 ms/step
-    # measured on v5e (tools/exp_r3_followup.py).
+    # (every seed improves; tools/exp_ate_levers.py).
     ransac_iters: int = 256
     ransac_threshold: float = 1.0      # epipolar (Sampson) inlier distance, px
     # Amortized detection (the reference's flow-mode feature-decay
@@ -258,46 +253,26 @@ class TPUParams:
     # propagated frames).
     detect_every: int = 1
     propagate_min_matches: int = 48
-    # Detector top-K recall target (lax.approx_max_k).  Measured on v5e
-    # (tools/exp_topk_recall.py): exact top-k (1.0) costs +419us per
-    # KITTI-size image pass (567 -> 986 us) while 0.95 drops only 1.6-2.5%
+    # Detector top-K recall target (lax.approx_max_k).  0.95 drops 1.6-2.5%
     # of the 512 winners on blob scenes and none on textured scenes; the
-    # e2e ATE effect is within seed noise (see docs/MODES.md).
+    # e2e ATE effect is within seed noise (docs/MODES.md).  No effect on a
+    # GPU or CPU: there approx_max_k lowers to an exact top-k.
     topk_recall: float = 0.95
     fast_arc: int = 12                 # FAST-N contiguous arc (FASTER-12 equivalent)
-    # Use Pallas distance kernels instead of the XLA-fused jnp path.  Both are
-    # bit-exact (tests/test_kernels.py, verified on v5e); measured on v5e the
-    # XLA path is currently ~20% faster for the [512,512]x64 shapes (488us vs
-    # 589us SAD), so the fused path is the default.
-    use_pallas: bool = False
-    # Compute the all-pairs patch distance on the MXU as a mapped squared-L2
-    # (one matmul) instead of the exact VPU abs-diff SAD — same thresholds,
-    # near-identical ranking (rso.kernels.distance.sad_matrix_mxu).  The nine
-    # [K,K,64] SAD reductions are the stereo-match + tracking hot spot.
-    use_mxu_distance: bool = True
-    # Fused Pallas stage-3/4 cores (kernels.stereo_fused): exact all-pairs
-    # SAD + geometric masks + best/second-best in one VMEM-resident kernel
-    # per stage.  Takes precedence over use_mxu_distance for the SAD method.
-    # Default ON: strictly exact (no MXU-shortlist recall loss) and measured
-    # faster — isolated 2.7x (stage 3: 23.5us vs 63.7us at K=512) and -2.8%
-    # median full step in an interleaved A/B on v5e (tools/exp_fused_ab.py;
-    # docs/artifacts/r3_tpu_suite.txt).  Off-TPU the engine falls back to
-    # the dense/MXU path automatically (Pallas needs interpret mode on CPU).
-    use_fused_match: bool = True
-    # Fused Pallas detection kernel (corner test + Shi-Tomasi in one VMEM
-    # pass, rso.kernels.fast_detect).  Equivalent to the XLA path inside the
-    # engine's border margin; see tests/test_kernels.py.
-    use_pallas_detect: bool = False
+    # Stage-3/4 SAD with the squared-L2 shortlist (one matmul ranks the
+    # candidates, exact SAD re-scores the top 8; rso.kernels.distance
+    # .sad_topk_refine) instead of exact all-pairs SAD — same thresholds,
+    # near-identical ranking, but candidates ranked below the top 8 are
+    # lost.  Off: on the H100 exact SAD is also the faster of the two
+    # (PERF.md, PR 1).
+    use_mxu_distance: bool = False
     # LK subpixel alignment of tracked observations against the previous
     # frame's stored patches before the pose solve (rso.frontend.refine) —
     # gated on per-feature SSD improvement.  Measured: improves ATE 6-15% in
     # 6/6 seed x speed configs on the textured corridor (real-image
     # statistics; tools/exp_refine_texture.py), accuracy-neutral on blob
-    # fields (match-structure-limited there).  Measured cost with the
-    # trimmed r3 schedule (2 iters, no SSD gate): +0.44 ms/step at KITTI
-    # size on v5e (0.94 -> 1.38 ms interleaved; tools/exp_refine_cost.py —
-    # the original 3-iter+gate schedule cost +0.74, v1's full-image slices
-    # 7.7 ms).
+    # fields (match-structure-limited there).  Its step cost on the GPU is
+    # not measured.
     # Off in the bare default (costs step time for nothing on blob
     # benches); ON in the dataset presets configs/{kitti,euroc,malaga}.ini.
     subpixel_track_refine: bool = False
@@ -310,13 +285,12 @@ class TPUParams:
     refine_iters: int = 2
     refine_ssd_gate: bool = False
     # Run the dense detection passes (FAST segment test + Shi-Tomasi/Harris
-    # structure tensor) in bfloat16.  Detection is HBM-bound at f32
-    # speed-of-light on v5e (~45us per image-octave per pass); bf16 halves the
-    # bytes.  Measured trade (tools/exp_detect_bf16.py, synthetic 40-frame
-    # scene): ~1% step time for ~2x ATE (0.020 -> 0.045 m) — bf16 rounding of
-    # img+threshold shifts the effective FAST threshold by +-1 for pixels
-    # >= 256 and inflates NMS ties, churning ~10% of the keypoint set.  OFF by
-    # default; a throughput-over-accuracy escape hatch only.
+    # structure tensor) in bfloat16 to halve their bytes.  Measured trade
+    # on a synthetic 40-frame scene: ~2x ATE (0.020 -> 0.045 m) — bf16
+    # rounding of img+threshold shifts the effective FAST threshold by +-1
+    # for pixels >= 256 and inflates NMS ties, churning ~10% of the
+    # keypoint set.  OFF by default; a throughput-over-accuracy escape
+    # hatch only.  Its speed on the GPU is not measured.
     detect_bf16: bool = False
     # Run the FAST segment test's 16 neighbor comparisons on an int16 image
     # scaled by 16 — EXACT (unlike detect_bf16): u8 pixels and every 2x2-avg
@@ -325,14 +299,8 @@ class TPUParams:
     # half the bytes.  (With a bilinear rectification map active the x16
     # values are no longer integral and truncation can shift the effective
     # threshold by <1/16 px-value — gate it off in rectified configs.)
-    # Measured on v5e (tools/exp_detect_i16.py, 8-round interleaved step
-    # A/B): +0.6% median step — within the +-3% drift band, NO-GO.  XLA
-    # already fuses the 16 neighbor reads into one sweep over the f32
-    # image, so halving the operand width saves no HBM traffic and the
-    # extra quantize pass costs slightly more than it returns.  OFF; kept
-    # as an exactness-preserving library option + the documented verdict.
+    # OFF; its speed on the GPU is not measured.
     fast_i16: bool = False
-    interpret_pallas: bool = False     # run Pallas kernels in interpreter mode (CPU tests)
 
 
 @dataclass(frozen=True)
@@ -344,7 +312,7 @@ class RSOConfig:
     least_squares: LeastSquaresParams = LeastSquaresParams()
     gui: GUIParams = GUIParams()
     general: GeneralParams = GeneralParams()
-    tpu: TPUParams = TPUParams()
+    engine: EngineParams = EngineParams()
 
     @property
     def n_octaves(self) -> int:
@@ -401,7 +369,7 @@ _SECTION_FIELDS = {
             "orb_min_th": "orb_min_th",
             "orb_max_th": "orb_max_th",
             "orb_max_distance": "orb_max_distance",
-            # TPU-extension key (no reference equivalent): see
+            # rso-extension key (no reference equivalent): see
             # LeftRightMatchParams.use_z_gate
             "use_z_gate": "use_z_gate",
         },
@@ -456,10 +424,10 @@ _SECTION_FIELDS = {
             "vo_out_dir": "vo_out_dir",
         },
     ),
-    "TPU": (
-        "tpu",
-        TPUParams,
-        {f.name: f.name for f in dataclasses.fields(TPUParams)},
+    "ENGINE": (
+        "engine",
+        EngineParams,
+        {f.name: f.name for f in dataclasses.fields(EngineParams)},
     ),
 }
 
@@ -515,7 +483,7 @@ def dump_to_console(cfg: RSOConfig) -> str:
     """Pretty-print the config (reference: dumpToConsole(), libstereo-odometry.h:187)."""
     lines = []
     for attr in ("rectify", "detect", "lr_match", "if_match", "least_squares",
-                 "gui", "general", "tpu"):
+                 "gui", "general", "engine"):
         sub = getattr(cfg, attr)
         name = type(sub).__name__
         for f in dataclasses.fields(sub):

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow, fully vectorized over keypoints.
 
-TPU-native equivalent of the reference's ifmOpticalFlow tracking branch
+JAX equivalent of the reference's ifmOpticalFlow tracking branch
 (stereo_vo stage4_match_consecutive.cpp:333-431, which calls
 cv::calcOpticalFlowPyrLK on the left and right streams).  Classic
 coarse-to-fine iterative LK: per level, per keypoint, a 2x2 normal-equation
@@ -40,17 +40,16 @@ def _lk_level(prev_img, cur_img, pts_prev, guess, win: int, iters: int):
     pts_prev: [K,2] keypoint coords at this level; guess: [K,2] initial flow.
     Returns (flow [K,2], residual [K]).
 
-    TPU formulation (v3): the iteration never touches the full image.  Two
+    Fixed-shape formulation (v3): the iteration never touches the full image.  Two
     batched patch pulls per level (template [K,S_t,S_t] around the keypoint,
     search [K,S_c,S_c] around the initial guess) via the detector's profiled
     row-take extractor, then every LK iteration cuts its bilinear window
     from the small search patch with one-hot row/column matmuls — static
     shapes, no gather.  History of this function (docs/FLOW_SCAN_FAULT.md):
-    v1 per-sample gather bilinear faulted the TPU runtime inside long scans;
-    v2 fixed that with one lax.dynamic_slice from the padded full image per
-    iteration, but vmapped dynamic_slice with per-keypoint starts lowers to
-    scattered HBM gathers costing ~64 ms/step in flow mode
-    (tools/exp_flow_cost.py).  v3 is bit-identical to v2 for every iterate
+    v1 per-sample gather bilinear faulted the earlier runtime inside long
+    scans; v2 fixed that with one lax.dynamic_slice from the padded full
+    image per iteration, but vmapped dynamic_slice with per-keypoint starts
+    lowers to scattered device-memory gathers, far slower in flow mode.  v3 is bit-identical to v2 for every iterate
     whose integer window base stays within _LK_SLACK px of the initial
     guess (coarse-to-fine refinement is a few px per level); beyond that
     the window clamps to the patch edge, the residual grows, and the err

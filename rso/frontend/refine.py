@@ -1,4 +1,4 @@
-"""Subpixel refinement of tracked observations (TPU-build improvement).
+"""Subpixel refinement of tracked observations (rso improvement).
 
 Neither the reference's FASTER path nor its windowed SAD tracker is subpixel:
 tracked coordinates inherit integer detection quantization, which puts a
@@ -12,14 +12,13 @@ on the textured corridor (tools/exp_refine_texture.py).
 Runs inside the jitted step; needs only the current octave image and the
 previous patches already carried in EngineState (no extra state).
 
-TPU formulation (v2): the iteration never touches the full image.  One
+Fixed-shape formulation (v2): the iteration never touches the full image.  One
 batched 16x16 patch per keypoint is pulled up front with the detector's
 profiled row-take + one-hot-lane extractor (detect.extract_patches); every
 LK iteration then works on the [K,16,16] tensor with a tiny vmapped
 dynamic_slice + static bilinear mixing.  The v1 formulation (one 9x9
 dynamic_slice FROM THE FULL IMAGE per keypoint per iteration) lowered to
-scattered HBM gathers and cost 7.7 ms/step at K=512 x 2 eyes x 3 octaves
-(tools/exp_refine_cost.py); v1 itself replaced a per-sample gather bilinear
+scattered device-memory gathers, many times slower; v1 itself replaced a per-sample gather bilinear
 of the kernel-fault class documented in docs/FLOW_SCAN_FAULT.md.
 Edge padding reproduces clamp-to-border sampling for out-of-image taps.
 """
@@ -90,8 +89,7 @@ def refine_positions(
             # |r| <= 0.5, |d| <= max_shift (floor in [-3..2], tap <= 15).
             # The 9x9 integer window is cut out with one-hot row/column
             # matmuls — static shapes, no gather: a vmapped dynamic_slice
-            # here lowered to scattered gathers costing ~1.8 ms per window
-            # eval at K=512 (tools/exp_refine_prof.py).
+            # here lowers to scattered gathers.
             q = r + d
             bx = jnp.clip(jnp.floor(q[0]).astype(jnp.int32), -3, 2)
             by = jnp.clip(jnp.floor(q[1]).astype(jnp.int32), -3, 2)

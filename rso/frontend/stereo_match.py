@@ -1,9 +1,9 @@
 """Stage 3: left<->right stereo matching as one masked distance matrix.
 
-TPU-native re-design of the reference's stage3_match_left_right (stereo_vo
+Fixed-shape re-design of the reference's stage3_match_left_right (stereo_vo
 stage3_match_left_right.cpp:62-484).  The row-bucketed triple loop
 (rows x left-feats x right-feats-in-window) becomes a dense [K,K] cost matrix
-with additive masks — mathematically the same acceptance rules, MXU/VPU shaped:
+with additive masks — mathematically the same acceptance rules, data-parallel:
 
   * epipolar constraint  |yL - yR| <= max_y_diff      (:254-256 row window)
   * disparity constraint 1 <= xL - xR <= 0.7*W        (:247, :283-285)
@@ -39,14 +39,12 @@ class StereoMatches(NamedTuple):
     valid: jnp.ndarray  # [K] bool
 
 
-# Distance matrices live in rso.kernels (Pallas TPU kernels + jnp references);
-# these aliases keep the stage-3 module self-describing.
+# Distance matrices live in rso.kernels; these aliases keep the stage-3
+# module self-describing.
 from rso.kernels.distance import (  # noqa: E402
-    _on_tpu,
-    hamming_matrix_auto,
     hamming_matrix_jnp as hamming_matrix,
-    sad_matrix_auto,
     sad_matrix_jnp as sad_matrix,
+    stereo_sad_best,
 )
 
 
@@ -72,9 +70,8 @@ def _arbitrate_right(cand_r: jnp.ndarray, cand_d: jnp.ndarray,
     else:
         key = l_idx
     key = jnp.where(cand_ok, key, jnp.int32(2**31 - 1))
-    # dense one-hot min-reduce instead of segment_min: scatter-based segment
-    # ops serialize on TPU (~1.6 ms/call measured); the [K_l,K_r] compare +
-    # lane reduction is ~50x cheaper at K=512
+    # dense one-hot min-reduce instead of segment_min: colliding scatter
+    # writes serialize, the [K_l,K_r] compare + row reduction does not
     claims = (cand_r[:, None] == jnp.arange(K_r, dtype=jnp.int32)[None, :]
               ) & cand_ok[:, None]
     keymat = jnp.where(claims, key[:, None], jnp.int32(2**31 - 1))
@@ -90,10 +87,7 @@ def match_left_right(
     img_w: int,
     min_response: float,
     fx_baseline: float | None = None,
-    use_pallas: bool = False,
-    interpret_pallas: bool = False,
     use_mxu: bool = False,
-    use_fused: bool = False,
 ) -> StereoMatches:
     """Stereo-match one octave's left/right feature sets.
 
@@ -101,6 +95,9 @@ def match_left_right(
     window honors params.min_z/max_z — the depth gate the reference declares
     (TLeftRightMatchParams h:497) and sketches in comments
     (stage3_match_left_right.cpp:155-156) but leaves hardcoded to [1, 0.7*W].
+
+    SAD method: exact all-pairs SAD (kernels.distance.stereo_sad_best), or
+    with use_mxu the squared-L2 shortlist re-scored by exact SAD.
     """
     method = params.match_method
     K = left.xy.shape[0]
@@ -112,9 +109,9 @@ def match_left_right(
         StereoMatchMethod.SAD, StereoMatchMethod.DESC_RBR) else float(img_w)
 
     def build_pair_ok():
-        """[K,K] admissibility planes for the XLA paths.  The fused Pallas
-        path re-derives the identical geometry in-register from the [K]
-        coordinate vectors, so the planes are only built where consumed."""
+        """[K,K] admissibility planes for the shortlist and Hamming paths
+        (the exact-SAD path derives the same geometry from the [K]
+        coordinate vectors)."""
         ok = left.valid[:, None] & right.valid[None, :]
         ok &= (left.response[:, None] >= min_response) & (
             right.response[None, :] >= min_response)
@@ -135,25 +132,16 @@ def match_left_right(
         max_distance = float(params.orb_max_distance)
         use_ratio = False  # reference applies no ratio test on ORB paths
 
-    if method == StereoMatchMethod.SAD and use_fused and (
-            interpret_pallas or _on_tpu()):
-        # one Pallas kernel: exact all-pairs SAD + geometric masks +
-        # best/second-best entirely in VMEM (kernels.stereo_fused) — same
-        # acceptance semantics as the dense path below, none of its [K,K]
-        # HBM round-trips, and exact SAD (no shortlist recall loss)
-        from rso.kernels.stereo_fused import stereo_sad_fused
-
-        ok_l = left.valid & (left.response >= min_response)
-        ok_r = right.valid & (right.response >= min_response)
-        best_r, best_d, second_d = stereo_sad_fused(
-            left.patch, right.patch, left.xy, right.xy, ok_l, ok_r,
+    if method == StereoMatchMethod.SAD and not use_mxu:
+        best_r, best_d, second_d = stereo_sad_best(
+            left.patch, right.patch, left.xy, right.xy,
+            left.valid & (left.response >= min_response),
+            right.valid & (right.response >= min_response),
             max_y_diff=float(max(params.max_y_diff, 0.0)),
-            max_disp=float(max_disp), max_distance=float(max_distance),
-            interpret=interpret_pallas)
-    elif method == StereoMatchMethod.SAD and use_mxu:
-        # coarse-to-fine: MXU squared-L2 shortlist, exact SAD on top-8
-        # (kernels.distance.sad_topk_refine) — same acceptance semantics as
-        # the dense path, O(K^2 P) moved onto the systolic array
+            max_disp=float(max_disp), max_distance=max_distance)
+    elif method == StereoMatchMethod.SAD:
+        # coarse-to-fine: squared-L2 shortlist (one matmul), exact SAD on
+        # the top 8 (kernels.distance.sad_topk_refine)
         from rso.kernels.distance import sad_topk_refine
 
         idx, sad, ok = sad_topk_refine(left.patch, right.patch,
@@ -166,12 +154,7 @@ def match_left_right(
                          _BIG, sadm)
         second_d = jnp.min(row2, axis=1)
     else:
-        if method == StereoMatchMethod.SAD:
-            D = sad_matrix_auto(left.patch, right.patch, use_pallas,
-                                interpret_pallas)
-        else:
-            D = hamming_matrix_auto(left.desc, right.desc, use_pallas,
-                                    interpret_pallas)
+        D = hamming_matrix(left.desc, right.desc)
         Dm = jnp.where(build_pair_ok() & (D <= max_distance), D, _BIG)
 
         # best + second-best per left feature

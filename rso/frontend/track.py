@@ -1,6 +1,6 @@
 """Stage 4: inter-frame tracking of stereo matches as a masked cost matrix.
 
-TPU-native re-design of the reference's stage4_track (stereo_vo
+Fixed-shape re-design of the reference's stage4_track (stereo_vo
 stage4_match_consecutive.cpp:71-801).  The reference tracks *stereo matches*
 (not raw features) from frame t-1 to t; here both frames' matches live in
 left-slot-aligned arrays, so tracking is a [K,K] cost matrix over
@@ -34,7 +34,7 @@ import jax.numpy as jnp
 from rso.config import IFMatchMethod, InterFrameMatchParams
 from rso.frontend.detect import Features
 from rso.frontend.stereo_match import StereoMatches, _arbitrate_right
-from rso.kernels.distance import _on_tpu, hamming_matrix_auto, sad_matrix_auto
+from rso.kernels.distance import hamming_matrix_jnp, track_sad_best
 from rso.solver.ransac import ransac_fundamental
 
 _BIG = jnp.float32(1e9)
@@ -62,11 +62,10 @@ def track_interframe(
     key: jnp.ndarray,
     ransac_iters: int = 64,
     ransac_threshold: float = 1.0,
-    use_pallas: bool = False,
-    interpret_pallas: bool = False,
     use_mxu: bool = False,
-    use_fused: bool = False,
 ) -> TrackResult:
+    """SAD method: exact both-eye SAD (kernels.distance.track_sad_best), or
+    with use_mxu the squared-L2 shortlist re-scored by exact SAD."""
     K = prev_matches.ridx.shape[0]
     method = params.ifm_method
 
@@ -78,22 +77,12 @@ def track_interframe(
     pR_xy, pR_patch, pR_desc = _gather_right(prev_right, prev_matches.ridx)
     cR_xy, cR_patch, cR_desc = _gather_right(cur_right, cur_matches.ridx)
 
-    if method == IFMatchMethod.SAD and use_fused and (
-            interpret_pallas or _on_tpu()):
-        # fused Pallas core (kernels.stereo_fused.track_sad_fused): both-eye
-        # exact SAD + window masks + per-row best in one VMEM kernel — same
-        # acceptance semantics as the dense path, exact SAD (no shortlist).
-        # Off-TPU (CPU CI) Pallas only runs interpreted, so fall through to
-        # the dense/MXU formulation instead.
-        from rso.kernels.stereo_fused import track_sad_fused
-
-        best_c, best_d = track_sad_fused(
+    if method == IFMatchMethod.SAD and not use_mxu:
+        best_c, best_d = track_sad_best(
             prev_left.patch, cur_left.patch, pR_patch, cR_patch,
-            prev_left.xy, cur_left.xy, pR_xy[:, 0], cR_xy[:, 0],
-            p_ok, c_ok,
+            prev_left.xy, cur_left.xy, pR_xy[:, 0], cR_xy[:, 0], p_ok, c_ok,
             win_row=float(params.ifm_win_w), win_col=float(params.ifm_win_h),
-            sad_max=float(params.sad_max_distance),
-            interpret=interpret_pallas)
+            sad_max=float(params.sad_max_distance))
         cand_ok = best_d < _BIG
         survive = _arbitrate_right(best_c, best_d, cand_ok, K, keep_best=True)
         return _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive,
@@ -102,29 +91,17 @@ def track_interframe(
     pair_ok = p_ok[:, None] & c_ok[None, :]
 
     if method == IFMatchMethod.SAD:
-        if use_mxu:
-            # coarse-to-fine (see stereo_match): the window mask is applied
-            # to the coarse MXU cost below, so defer to the use_window block
-            side_ok = cost = None
-        else:
-            sad_l = sad_matrix_auto(prev_left.patch, cur_left.patch,
-                                    use_pallas, interpret_pallas)
-            sad_r = sad_matrix_auto(pR_patch, cR_patch, use_pallas,
-                                    interpret_pallas)
-            side_ok = (sad_l <= params.sad_max_distance) & (
-                sad_r <= params.sad_max_distance)
-            cost = sad_l + sad_r
+        # the squared-L2 shortlist (see stereo_match): the window mask is
+        # applied to its coarse cost below
+        side_ok = cost = None
         use_window = True
     elif method == IFMatchMethod.DESC_WIN:
-        cost = hamming_matrix_auto(prev_left.desc, cur_left.desc, use_pallas,
-                                   interpret_pallas)
+        cost = hamming_matrix_jnp(prev_left.desc, cur_left.desc)
         side_ok = jnp.ones_like(pair_ok)
         use_window = True
     elif method == IFMatchMethod.DESC_BF:
-        costL = hamming_matrix_auto(prev_left.desc, cur_left.desc, use_pallas,
-                                    interpret_pallas)
-        costR = hamming_matrix_auto(pR_desc, cR_desc, use_pallas,
-                                    interpret_pallas)
+        costL = hamming_matrix_jnp(prev_left.desc, cur_left.desc)
+        costR = hamming_matrix_jnp(pR_desc, cR_desc)
         # both sides must independently pick the same cur match and pass the
         # distance threshold (reference :149-159 + consistency :282)
         DL = jnp.where(pair_ok, costL, _BIG)
@@ -153,19 +130,19 @@ def track_interframe(
             dxr <= params.ifm_win_h)
         pair_ok &= win
 
-    if method == IFMatchMethod.SAD and use_mxu:
-        # coarse-to-fine: MXU squared-L2 (both eyes summed) shortlists top-8
-        # per prev slot, exact SAD re-scores both eyes on the shortlist —
-        # identical acceptance semantics, O(K^2 P) on the systolic array
+    if method == IFMatchMethod.SAD:
+        # coarse-to-fine: squared-L2 (both eyes summed, one matmul each)
+        # shortlists top-8 per prev slot, exact SAD re-scores both eyes on
+        # the shortlist; the cross-terms run at DEFAULT precision (TF32 on
+        # a GPU) because they only rank
         from rso.kernels.distance import ssd_matrix
 
         coarse = ssd_matrix(prev_left.patch, cur_left.patch,
                             precision=jax.lax.Precision.DEFAULT) + ssd_matrix(
             pR_patch, cR_patch, precision=jax.lax.Precision.DEFAULT)
         coarse = jnp.where(pair_ok, coarse, jnp.inf)
-        # approx_max_k: TPU-native partial reduction instead of a full [K,K]
-        # sort (37us -> ~5us at K=512); recall_target=1.0 keeps it exact (it
-        # only drops the sort of the non-selected tail)
+        # recall_target=1.0: an exact top-k (on a GPU approx_max_k is an
+        # exact top-k at any recall target)
         neg, idx = jax.lax.approx_max_k(-coarse, 8, recall_target=1.0)
         idx = idx.astype(jnp.int32)
         ok8 = jnp.isfinite(neg)
@@ -205,7 +182,7 @@ def _finish(prev_left, pR_xy, cur_left, cR_xy, best_c, survive, params, key,
     if params.filter_fund_matrix:
         k1, k2 = jax.random.split(key)
         # both eyes in ONE vmapped call: the per-hypothesis 9x9 Cholesky
-        # batches to [2,H,9,9] in a single custom call (~halves its cost)
+        # batches to [2,H,9,9] in a single library call
         res2 = jax.vmap(
             lambda p1, p2, k: ransac_fundamental(
                 p1, p2, survive, k, n_iters=ransac_iters,

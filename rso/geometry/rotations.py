@@ -1,6 +1,6 @@
 """Rotation-vector (Rodrigues) utilities with closed-form derivatives.
 
-TPU-native counterpart of the reference's inline rotation algebra in
+JAX counterpart of the reference's inline rotation algebra in
 `m_pinhole_stereo_projection` (stereo_vo stage5_optimization.cpp:35-163): the
 rotation matrix R(w) and all nine dR/dw_k terms, with the same small-angle
 branch at ||w|| < 1e-5.  Here the branch is a `jnp.where` (both branches are

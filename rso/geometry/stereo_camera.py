@@ -1,6 +1,6 @@
 """Stereo pinhole camera model: triangulation, projection, analytic Jacobian.
 
-TPU-native equivalents of (reference, stereo_vo):
+JAX equivalent of (reference, stereo_vo):
   - closed-form stereo back-projection       stage5_optimization.cpp:519-544
   - m_pinhole_stereo_projection (+4x6 J)     stage5_optimization.cpp:35-257
   - getProjectedCoords landmark reprojection common.cpp:415-470

@@ -2,7 +2,7 @@
 
 Covers the reference's camera-calibration inputs (demo-main.cpp:184-205 loads
 an MRPT INI [CAMERA_PARAMS] section or the first rawlog observation) plus the
-dataset formats the TPU build targets: KITTI odometry calib.txt and EuRoC
+dataset formats rso targets: KITTI odometry calib.txt and EuRoC
 sensor.yaml.  Rectification maps mirror MRPT's CStereoRectifyMap
 (stage1_rectify.cpp:66-73): computed once on host, applied on device by
 rso.frontend.pyramid.bilinear_remap.

@@ -1,6 +1,6 @@
 """Engine-state checkpoint/resume: exact, whole-pytree.
 
-TPU-native equivalent of the reference's saveStateToFile/loadStateFromFile
+JAX equivalent of the reference's saveStateToFile/loadStateFromFile
 (stereo_vo common.cpp:261-350, :475-543).  Where the reference hand-serializes
 keypoint/match structs (and only round-trips the legacy single-octave ORB
 fields, h:767-768), this checkpoints the *entire* EngineState pytree to NPZ —

@@ -1,6 +1,6 @@
 """Dataset loaders: KITTI odometry, EuRoC MAV, Malaga Urban, image directories.
 
-The TPU build's equivalent of the reference demo's three image sources
+rso's equivalent of the reference demo's three image sources
 (demo-main.cpp:110-146: live camera / rawlog / image dir) plus the benchmark
 datasets named in BASELINE.json.  All loaders yield (left u8 [H,W],
 right u8 [H,W], timestamp) and expose a StereoCamera.  Decode is host-side

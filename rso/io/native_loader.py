@@ -2,7 +2,7 @@
 
 The reference feeds the engine from a native C++ acquisition layer (MRPT
 CCameraSensor / rawlog / CImage decode, demo-main.cpp:110-146); this module
-is the TPU build's equivalent: libpng/libjpeg/PGM grayscale decode plus a
+is rso's equivalent: libpng/libjpeg/PGM grayscale decode plus a
 bounded multi-threaded prefetch ring that overlaps host decode with device
 compute.  Degrades gracefully (`available() == False`) when the shared
 library is absent; `rso.io.datasets.StereoDataset.prefetch` then falls back

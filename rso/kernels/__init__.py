@@ -1,20 +1,9 @@
-from rso.kernels.distance import (
-    hamming_matrix_auto,
-    hamming_matrix_jnp,
-    hamming_matrix_pallas,
-    sad_matrix_auto,
-    sad_matrix_jnp,
-    sad_matrix_pallas,
-)
+from rso.kernels.distance import hamming_matrix_jnp, sad_matrix_jnp
 from rso.kernels.cost_volume import WindowedSearchResult, windowed_sad_search
 
 __all__ = [
-    "hamming_matrix_auto",
     "hamming_matrix_jnp",
-    "hamming_matrix_pallas",
-    "sad_matrix_auto",
     "sad_matrix_jnp",
-    "sad_matrix_pallas",
     "WindowedSearchResult",
     "windowed_sad_search",
 ]

@@ -10,9 +10,8 @@ track-recovery configuration.
 v2 formulation: the per-keypoint search region is pulled with the detector's
 profiled row-take extractor (32-lane chunks) and all 8x8 windows are
 materialized with one dense unfold (conv_general_dilated_patches) — no
-vmapped dynamic_slice, whose per-keypoint scattered HBM gathers are both slow
-and a pinned TPU-runtime fault trigger inside long scans
-(docs/FLOW_SCAN_FAULT.md).  Bit-identical to v1 (integer SADs).
+vmapped dynamic_slice, whose per-keypoint scattered gathers are both slow
+and a runtime fault trigger inside long scans (docs/FLOW_SCAN_FAULT.md).  Bit-identical to v1 (integer SADs).
 """
 from __future__ import annotations
 

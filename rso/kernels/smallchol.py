@@ -1,40 +1,27 @@
-"""Pallas TPU kernel: batched 9x9 PSD null-vector extraction for RANSAC.
+"""Batched 9x9 PSD null-vector extraction for RANSAC, in plain jnp.
 
 The 8-point fundamental-matrix solve (rso.solver.ransac._solve_eight_point)
 needs the 0-eigenvector of M = A^T A, a rank-<=8 PSD 9x9 matrix, for every
-RANSAC hypothesis.  The XLA path is a batched Cholesky custom call + four
-triangular-solve rounds — each a separate ~20-60us kernel launch per frame.
-Here the whole pipeline (regularize -> LDL^T factor -> two inverse-iteration
-rounds -> normalize) is ONE Pallas kernel with the hypothesis batch laid on
-the 128 VPU lanes: every scalar of the 9x9 recursion becomes a [128]-lane
-vector op, so the sequential factorization costs ~300 vector ops total.
+RANSAC hypothesis: two rounds of inverse iteration on a regularized M, with
+one batched Cholesky library call for the factor and the triangular solves
+unrolled as elementwise ops over the [B] hypothesis axis.
 
-Pivot robustness: a straight unrolled f32 *Cholesky* is fragile here — M is
-rank-8 by construction so the last pivot sits at the f32 cancellation floor
-and can go negative (NaN via sqrt).  LDL^T needs no sqrt, and clamping pivots
-to a trace-scaled floor keeps the solve finite; the clamp perturbs M by
-≪ the smallest nonzero eigenvalue, which inverse iteration tolerates (the
-null direction stays dominant).  Equivalence vs the jnp path:
+On the H100 an unrolled, pivot-floored LDL^T of the whole recursion was
+2.8x faster than this form timed alone but made the full step 15% slower,
+so this form stays (PERF.md, PR 1).  Accuracy vs float64 eigh:
 tests/test_kernels.py::TestNullvec9.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 _N = 9
-_LANES = 128
 
 
-def nullvec9_jnp(M: jnp.ndarray) -> jnp.ndarray:
-    """[B,9,9] PSD rank-<=8 -> [B,9] unit approximate null vectors.
-
-    XLA reference path: regularized batched Cholesky custom call + unrolled
-    forward/backward substitution, two rounds of inverse iteration.
-    """
+def nullvec9(M: jnp.ndarray) -> jnp.ndarray:
+    """[B,9,9] PSD rank-<=8 -> [B,9] unit approximate null vectors:
+    regularized batched Cholesky + unrolled forward/backward substitution,
+    two rounds of inverse iteration."""
     B = M.shape[0]
     # 3e-7*tr keeps the smallest pivot comfortably positive for f32 potrf
     # (cond ~3e6); still ≪ the smallest nonzero eigenvalue of a usable
@@ -53,7 +40,7 @@ def _cho_solve_unrolled(L, b):
 
     Substitution is numerically benign (the f32 fragility that rules out an
     unrolled *factorization* is in forming the last pivots); unrolling avoids
-    four triangular-solve custom calls per cho_solve pair.
+    four triangular-solve library calls per cho_solve pair.
     """
     n = L.shape[-1]
     ys = []
@@ -74,86 +61,3 @@ def _cho_solve_unrolled(L, b):
             acc = acc - L[..., j, i] * xs[j]
         xs[i] = acc / L[..., i, i]
     return jnp.stack(xs, axis=-1)
-
-
-def _nullvec9_kernel(m_ref, out_ref):
-    """m_ref: [81, LANES] (row-major 9x9 per lane); out_ref: [9, LANES]."""
-    a = [[m_ref[i * _N + j, :] for j in range(_N)] for i in range(_N)]
-
-    tr = a[0][0]
-    for k in range(1, _N):
-        tr = tr + a[k][k]
-    # diagonal regularization (same 3e-7*tr as the jnp path) + pivot floor
-    floor = tr * 1e-7 + 1e-30
-    eps = tr * 3e-7 + 1e-12
-
-    # LDL^T, right-looking, fully unrolled.  l[i][k] for i>k; d[k] pivots.
-    d = [None] * _N
-    l = [[None] * _N for _ in range(_N)]
-    for k in range(_N):
-        d[k] = jnp.maximum(a[k][k] + eps, floor)
-        inv_d = 1.0 / d[k]
-        for i in range(k + 1, _N):
-            l[i][k] = a[i][k] * inv_d
-        for i in range(k + 1, _N):
-            for j in range(k + 1, i + 1):
-                a[i][j] = a[i][j] - l[i][k] * a[j][k]
-
-    # two rounds of inverse iteration on (L D L^T) x = x_prev
-    x = [jnp.full_like(tr, 1.0 / 3.0) for _ in range(_N)]
-    for _ in range(2):
-        z = [None] * _N
-        for i in range(_N):                   # L z = x (unit diagonal)
-            acc = x[i]
-            for j in range(i):
-                acc = acc - l[i][j] * z[j]
-            z[i] = acc
-        w = [z[i] / d[i] for i in range(_N)]  # D w = z
-        # renormalize mid-solve (direction-only; bounds f32 magnitudes when
-        # pivots sit at the floor — e.g. an all-zero padded-lane matrix)
-        wn = w[0] * w[0]
-        for i in range(1, _N):
-            wn = wn + w[i] * w[i]
-        inv_w = jax.lax.rsqrt(jnp.maximum(wn, 1e-60))
-        w = [w[i] * inv_w for i in range(_N)]
-        y = [None] * _N
-        for i in reversed(range(_N)):         # L^T y = w
-            acc = w[i]
-            for j in range(i + 1, _N):
-                acc = acc - l[j][i] * y[j]
-            y[i] = acc
-        nrm = y[0] * y[0]
-        for i in range(1, _N):
-            nrm = nrm + y[i] * y[i]
-        inv_n = jax.lax.rsqrt(jnp.maximum(nrm, 1e-60))
-        x = [y[i] * inv_n for i in range(_N)]
-
-    for i in range(_N):
-        out_ref[i, :] = x[i]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def nullvec9_pallas(M: jnp.ndarray, interpret: bool = False) -> jnp.ndarray:
-    """[B,9,9] -> [B,9]; B padded up to a multiple of 128 lanes internally."""
-    B = M.shape[0]
-    Bp = max(_LANES, (B + _LANES - 1) // _LANES * _LANES)
-    flat = M.reshape(B, _N * _N).T                        # [81, B]
-    flat = jnp.pad(flat, ((0, 0), (0, Bp - B)))
-    out = pl.pallas_call(
-        _nullvec9_kernel,
-        grid=(Bp // _LANES,),
-        in_specs=[pl.BlockSpec((_N * _N, _LANES), lambda b: (0, b))],
-        out_specs=pl.BlockSpec((_N, _LANES), lambda b: (0, b)),
-        out_shape=jax.ShapeDtypeStruct((_N, Bp), M.dtype),
-        interpret=interpret,
-    )(flat)
-    return out[:, :B].T                                    # [B, 9]
-
-
-def nullvec9_auto(M: jnp.ndarray, use_pallas: bool = True,
-                  interpret: bool = False) -> jnp.ndarray:
-    from rso.kernels.distance import _on_tpu
-
-    if use_pallas and (interpret or _on_tpu()):
-        return nullvec9_pallas(M, interpret=interpret)
-    return nullvec9_jnp(M)

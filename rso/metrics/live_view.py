@@ -1,4 +1,4 @@
-"""Live trajectory/overlay viewer — the TPU build's *live* GUI.
+"""Live trajectory/overlay viewer — rso's *live* GUI.
 
 The reference runs a second thread with an MRPT 3D window that shows, while
 the pipeline runs: the left/right images with feature marks, L-R pairing
@@ -6,7 +6,7 @@ rectangles, inter-frame tracking lines, and the integrated 3D camera path,
 plus a key handler that can pause/step/quit the processing loop
 (gui_thread.cpp:76-325, demo-main.cpp:256-284).
 
-A remote TPU host has no display, so the live window here is a tiny
+A remote accelerator host has no display, so the live window here is a tiny
 self-contained HTTP server on a background thread: a browser (or curl)
 polls JSON state at ~5 Hz and renders the 3D path on a canvas with
 drag-to-rotate, the latest overlay frame as JPEG, and Pause/Step/Quit

@@ -1,6 +1,6 @@
 """Verbosity logging + per-frame artifact dumps.
 
-TPU-native counterpart of the reference's VERBOSE_LEVEL macro
+JAX counterpart of the reference's VERBOSE_LEVEL macro
 (internal_libstereo-odometry.h:27) and the `vo_save_files`/`vo_debug` artifact
 dumps (process_new_image_pair.cpp:179-204, :278-287; stage4:80-82;
 stage5:702-713).  Dumps are NPZ keyed by frame index instead of scattered
@@ -31,7 +31,7 @@ class VOLogger:
 
     def dump_frame(self, frame_idx: int, **arrays):
         """Dump per-frame artifacts (features, matches, residuals, ...) as one
-        NPZ — the TPU build's left_feats_%04d.txt / matches_%04d.txt /
+        NPZ — rso's left_feats_%04d.txt / matches_%04d.txt /
         out_residual_%04d.txt equivalent."""
         if not self.save_files:
             return

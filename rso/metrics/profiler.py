@@ -1,6 +1,6 @@
 """Hierarchical span profiler, reference-compatible span names.
 
-TPU-native counterpart of MRPT's CTimeLogger as used by the reference
+JAX counterpart of MRPT's CTimeLogger as used by the reference
 (m_profiler, libstereo-odometry.h:732; spans `_stg1`..`_stg5`,
 `processNewImagePair`, etc.).  Host wall-clock spans via context manager;
 `device_span` additionally wraps jax.profiler.TraceAnnotation so XLA traces

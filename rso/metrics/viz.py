@@ -1,4 +1,4 @@
-"""Offline visualization writer — the TPU build's GUI replacement.
+"""Offline visualization writer — rso's GUI replacement.
 
 The reference runs a live MRPT 3-viewport window on a second thread
 (gui_thread.cpp:76-325: left/right images with feature marks, L/R pairing

@@ -2,7 +2,7 @@
 
 Independent C++ implementations of the hot pixel kernels with the reference's
 contracts (compute_SAD8, tracking_SAD, FAST segment test) — used as
-cross-language oracles for the TPU kernels and available for host-side
+cross-language oracles for the JAX kernels and available for host-side
 tooling.  Builds with native/build.sh; all entry points degrade gracefully
 (`available() == False`) when the shared library is absent.
 """

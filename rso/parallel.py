@@ -4,7 +4,10 @@ Within a sequence, frame t depends on t-1 (the prev-frame state and pose warm
 start), so DP happens across *sequences*: the whole jitted step vmaps over a
 batch of independent engine states, and the batch axis shards over a device
 mesh — offline benchmark sweeps (KITTI 00-10) run as one program over all
-local chips.
+local devices.  The vmapped step runs under shard_map, so every device
+steps only its own sequences and nothing crosses devices inside the step
+(nor can a custom call in the step, which the SPMD partitioner cannot
+split, force a gather).
 """
 from __future__ import annotations
 
@@ -35,13 +38,20 @@ class BatchEngine:
         self._shard = NamedSharding(mesh, P("seq"))
         step = make_step(cfg, cam, img_h, img_w, rectify_maps=rectify_maps)
         self._raw_step = step
-        self._step = jax.jit(jax.vmap(step))
+        self._step = jax.jit(self._per_device(jax.vmap(step), P("seq")))
         self._chunk = None
         st = init_state(cfg)
         self.states = jax.device_put(
             jax.tree_util.tree_map(
                 lambda x: jnp.broadcast_to(x, (batch,) + x.shape), st),
             NamedSharding(mesh, P("seq")))
+
+    def _per_device(self, f, out_spec):
+        """f over each device's shard of the 'seq' axis.  check_vma is off:
+        the step's solver loops carry scalars that are per-sequence values,
+        not mesh-replicated ones."""
+        return jax.shard_map(f, mesh=self.mesh, in_specs=P("seq"),
+                             out_specs=out_spec, check_vma=False)
 
     def process_frames(self, lefts: np.ndarray, rights: np.ndarray):
         """lefts/rights: [B,H,W] u8 — one frame per sequence."""
@@ -69,6 +79,7 @@ class BatchEngine:
                     states,
                     (jnp.swapaxes(ls, 0, 1), jnp.swapaxes(rs, 0, 1)))
 
-            self._chunk = jax.jit(chunk)
+            self._chunk = jax.jit(self._per_device(chunk, (P("seq"),
+                                                           P(None, "seq"))))
         self.states, results = self._chunk(self.states, lefts, rights)
         return results

@@ -1,6 +1,6 @@
 """Two-phase robust Gauss-Newton 6-DoF pose solver, fully fused under jit.
 
-TPU-native re-design of the reference's stage-5 optimizer (stereo_vo
+Fixed-shape re-design of the reference's stage-5 optimizer (stereo_vo
 stage5_optimization.cpp:275-736 — m_evalRGN + the two while-loops) and of the
 standalone getChangeInPose entry (common.cpp:355-413):
 
@@ -99,7 +99,7 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose, params: LeastSquar
     # weights only g by rho'; with irls_hessian_weighting we use proper IRLS —
     # same fixed point, far better-conditioned steps; see LeastSquaresParams
     # docs.  obs_weight adds per-observation variance weighting, e.g. 1/4^o
-    # for octave-o features — a TPU-build improvement over the reference.)
+    # for octave-o features — a rso improvement over the reference.)
     g = jnp.einsum("n,nij,ni->j", mf * rho_p, J, r)
     h_w = mf * rho_p if params.irls_hessian_weighting else mf
     H = jnp.einsum("n,nij,nik->jk", h_w, J, J)
@@ -109,8 +109,8 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose, params: LeastSquar
 
     if params.solve_backend == "chol":
         # Cholesky solve + cond_1 guard (LeastSquaresParams.solve_backend):
-        # identical dx on the PD systems real frames produce, ~5 us/iter
-        # cheaper than eigh on v5e (tools/exp_eigh_cost.py).  cond_1 =
+        # identical dx on the PD systems real frames produce, and cheaper
+        # than a 6x6 eigh.  cond_1 =
         # ||H||_1 ||H^-1||_1 (within 6x of cond_2 on 6x6) against the same
         # threshold; an indefinite H surfaces as NaN in L and aborts.
         L = jnp.linalg.cholesky(H)
@@ -128,7 +128,7 @@ def _eval_rgn(cam: StereoCamera, lmks, obs, mask, delta_pose, params: LeastSquar
     else:
         # Symmetric-eigendecomposition least-squares solve.  H is symmetric
         # PSD, so eigh gives the same singular spectrum as the reference's
-        # JacobiSVD (:375-388) at a fraction of the cost on TPU; the
+        # JacobiSVD (:375-388) at a fraction of its cost; the
         # condition-number guard is identical.
         w, V = jnp.linalg.eigh(H)  # ascending
         cond = w[5] / jnp.where(w[0] <= 0.0, jnp.nan, w[0])

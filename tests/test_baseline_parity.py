@@ -1,10 +1,10 @@
-"""Golden parity: the TPU solver vs the measured-reference baseline solver
+"""Golden parity: the JAX solver vs the measured-reference baseline solver
 on IDENTICAL correspondences.
 
 native/rso_baseline.cpp implements the reference's two-phase robust GN with
 its exact semantics (m_evalRGN, stage5_optimization.cpp:275-390: pseudo-Huber
 rho' weighting the gradient only, SVD solve, residual-threshold cut, pose
-inversion).  If the TPU solver and that port disagree beyond numerical noise
+inversion).  If the JAX solver and that port disagree beyond numerical noise
 on the same inputs, one of them diverged from the reference contract.
 """
 import numpy as np

@@ -49,10 +49,10 @@ class TestPrecomputedSeam:
             res_full = eng_full.process_frame(l, r)
             # extract the same features the full pipeline detected
             fl = detect_features(jnp.asarray(l, jnp.float32), cfg.detect,
-                                 cfg.tpu.max_kps_per_octave, jnp.int32(20),
+                                 cfg.engine.max_kps_per_octave, jnp.int32(20),
                                  need_desc=True)
             fr = detect_features(jnp.asarray(r, jnp.float32), cfg.detect,
-                                 cfg.tpu.max_kps_per_octave, jnp.int32(20),
+                                 cfg.engine.max_kps_per_octave, jnp.int32(20),
                                  need_desc=True)
             res_pre = eng_pre.process_precomputed([fl], [fr], img_hw=(H, W))
             np.testing.assert_array_equal(
@@ -74,9 +74,9 @@ class TestPrecomputedSeam:
         eng = Engine(cfg, seq.cam)
         l, r = seq.frames[0]
         fl = detect_features(jnp.asarray(l, jnp.float32), cfg.detect,
-                             cfg.tpu.max_kps_per_octave, jnp.int32(20), True)
+                             cfg.engine.max_kps_per_octave, jnp.int32(20), True)
         fr = detect_features(jnp.asarray(r, jnp.float32), cfg.detect,
-                             cfg.tpu.max_kps_per_octave, jnp.int32(20), True)
+                             cfg.engine.max_kps_per_octave, jnp.int32(20), True)
         li = np.asarray([0, 1, 2, 3, 4])
         ri = np.asarray([0, 1, 2, 3, 4])
         res = eng.process_precomputed([fl], [fr], matches=[(li, ri)],

@@ -96,7 +96,7 @@ class TestDetect:
         assert (frac > 1e-3).any()  # refinement produced non-integer coords
 
     def test_detect_bf16_agrees_with_f32(self, seq, cfg):
-        """detect_bf16 (TPUParams) must keep f32 output dtypes and find
+        """detect_bf16 (EngineParams) must keep f32 output dtypes and find
         essentially the same keypoints (rounding only perturbs response
         RANKING near the top-K boundary)."""
         img = jnp.asarray(seq.frames[0][0], jnp.float32)
@@ -216,26 +216,33 @@ class TestStereoMatch:
         ridx = np.asarray(m.ridx)[np.asarray(m.valid)]
         assert len(np.unique(ridx)) == len(ridx)  # no right feature reused
 
-    def test_fused_matches_dense_path(self, seq, cfg):
-        """kernels.stereo_fused must reproduce the dense jnp SAD path's
-        decisions exactly (integer-valued SADs: f32 summation order is
-        immaterial; argmin tie-break is first-index in both)."""
+    def test_exact_sad_matches_numpy(self, seq, cfg):
+        """Every surviving stereo match carries the exact SAD of its pair,
+        and no admissible candidate (NumPy brute force over the stage-3
+        masks) has a smaller one."""
         l, r = seq.frames[0]
         fl = detect_features(jnp.asarray(l, jnp.float32), cfg.detect, 512,
                              jnp.int32(20), need_desc=False)
         fr = detect_features(jnp.asarray(r, jnp.float32), cfg.detect, 512,
                              jnp.int32(20), need_desc=False)
-        dense = match_left_right(fl, fr, cfg.lr_match, l.shape[1], 0.0,
-                                 use_mxu=False)
-        fused = match_left_right(fl, fr, cfg.lr_match, l.shape[1], 0.0,
-                                 use_fused=True, interpret_pallas=True)
-        np.testing.assert_array_equal(np.asarray(dense.valid),
-                                      np.asarray(fused.valid))
-        v = np.asarray(dense.valid)
-        np.testing.assert_array_equal(np.asarray(dense.ridx)[v],
-                                      np.asarray(fused.ridx)[v])
-        np.testing.assert_allclose(np.asarray(dense.dist)[v],
-                                   np.asarray(fused.dist)[v])
+        p = cfg.lr_match
+        m = match_left_right(fl, fr, p, l.shape[1], 0.0)
+        pl_, pr_ = np.asarray(fl.patch), np.asarray(fr.patch)
+        xl, xr = np.asarray(fl.xy), np.asarray(fr.xy)
+        D = np.abs(pl_[:, None, :] - pr_[None, :, :]).sum(-1)
+        disp = xl[:, 0][:, None] - xr[:, 0][None, :]
+        ok = (np.asarray(fl.valid)[:, None] & np.asarray(fr.valid)[None, :]
+              & (np.abs(np.round(xl[:, 1])[:, None]
+                        - np.round(xr[:, 1])[None, :]) <= p.max_y_diff)
+              & (disp >= 1.0) & (disp <= 0.7 * l.shape[1])
+              & (D <= p.sad_max_distance))
+        v = np.asarray(m.valid)
+        assert v.sum() > 40
+        li = np.nonzero(v)[0]
+        ri = np.asarray(m.ridx)[v]
+        np.testing.assert_array_equal(np.asarray(m.dist)[v], D[li, ri])
+        np.testing.assert_array_equal(D[li, ri],
+                                      np.where(ok, D, np.inf)[li].min(1))
 
     def test_known_shift_recovered_exactly(self, seq, cfg):
         """Right image = left rolled by +5 px: every match must recover
@@ -285,9 +292,9 @@ class TestTrack:
                                jax.random.PRNGKey(0))
         assert int(trk.n_tracked) > 30
 
-    def test_fused_track_matches_dense_path(self, seq, cfg):
-        """kernels.stereo_fused.track_sad_fused must reproduce the dense
-        jnp ifmSAD path's decisions exactly."""
+    def test_exact_sad_track_matches_numpy(self, seq, cfg):
+        """Every tracked pair minimizes the both-eye exact SAD over the
+        admissible window candidates (NumPy brute force)."""
         prev_l, prev_r = seq.frames[0]
         cur_l, cur_r = seq.frames[1]
         det = lambda im: detect_features(jnp.asarray(im, jnp.float32),
@@ -296,16 +303,26 @@ class TestTrack:
         pl, pr, cl, cr = det(prev_l), det(prev_r), det(cur_l), det(cur_r)
         pm = match_left_right(pl, pr, cfg.lr_match, prev_l.shape[1], 0.0)
         cm = match_left_right(cl, cr, cfg.lr_match, cur_l.shape[1], 0.0)
-        dense = track_interframe(pl, pr, pm, cl, cr, cm, cfg.if_match,
-                                 jax.random.PRNGKey(0), use_mxu=False)
-        fused = track_interframe(pl, pr, pm, cl, cr, cm, cfg.if_match,
-                                 jax.random.PRNGKey(0), use_fused=True,
-                                 interpret_pallas=True)
-        np.testing.assert_array_equal(np.asarray(dense.valid),
-                                      np.asarray(fused.valid))
-        v = np.asarray(dense.valid)
-        np.testing.assert_array_equal(np.asarray(dense.cur_idx)[v],
-                                      np.asarray(fused.cur_idx)[v])
+        q = cfg.if_match
+        trk = track_interframe(pl, pr, pm, cl, cr, cm, q,
+                               jax.random.PRNGKey(0))
+        n = lambda x: np.asarray(x)
+        pri, cri = np.maximum(n(pm.ridx), 0), np.maximum(n(cm.ridx), 0)
+        sl = np.abs(n(pl.patch)[:, None] - n(cl.patch)[None]).sum(-1)
+        sr = np.abs(n(pr.patch)[pri][:, None]
+                    - n(cr.patch)[cri][None]).sum(-1)
+        pxy, cxy = n(pl.xy), n(cl.xy)
+        prx, crx = n(pr.xy)[pri, 0], n(cr.xy)[cri, 0]
+        ok = (n(pm.valid)[:, None] & n(cm.valid)[None, :]
+              & (np.abs(pxy[:, 1][:, None] - cxy[:, 1][None]) <= q.ifm_win_w)
+              & (np.abs(pxy[:, 0][:, None] - cxy[:, 0][None]) <= q.ifm_win_h)
+              & (np.abs(prx[:, None] - crx[None]) <= q.ifm_win_h)
+              & (sl <= q.sad_max_distance) & (sr <= q.sad_max_distance))
+        cost = np.where(ok, sl + sr, np.inf)
+        v = n(trk.valid)
+        assert v.sum() > 30
+        pi, ci = np.nonzero(v)[0], n(trk.cur_idx)[v]
+        np.testing.assert_array_equal(cost[pi, ci], cost[pi].min(1))
 
 
 class TestRefine:
@@ -359,7 +376,7 @@ class TestRefine:
 
 class TestFastI16:
     def test_i16_segment_test_bit_exact(self, seq, cfg):
-        """TPUParams.fast_i16: the x16 int16 FAST comparison must be
+        """EngineParams.fast_i16: the x16 int16 FAST comparison must be
         bit-identical to the f32 path on every pyramid octave (u8 pixels
         and 2x2-avg values are multiples of 1/16)."""
         from rso.frontend.pyramid import build_pyramid

@@ -140,7 +140,7 @@ class TestCheckpoint:
         cfg = RSOConfig()
         f = str(tmp_path / "s.npz")
         save_state(f, init_state(cfg))
-        other = cfg.replace(tpu=dataclasses.replace(cfg.tpu,
+        other = cfg.replace(engine=dataclasses.replace(cfg.engine,
                                                     max_kps_per_octave=128))
         with pytest.raises(ValueError):
             load_state(f, other)
@@ -211,7 +211,7 @@ vo_out_dir = /tmp/x
     @pytest.mark.parametrize("preset", ["kitti", "euroc", "malaga"])
     def test_dataset_presets_load_and_run(self, preset):
         """Every shipped preset INI must load and drive the engine end-to-end
-        (including the [TPU] extension section, e.g. subpixel_track_refine)."""
+        (including the [ENGINE] extension section, e.g. subpixel_track_refine)."""
         import os
 
         import numpy as np
@@ -221,7 +221,7 @@ vo_out_dir = /tmp/x
 
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         cfg = load_config(os.path.join(root, "configs", f"{preset}.ini"))
-        assert cfg.tpu.subpixel_track_refine is True  # preset ships it on
+        assert cfg.engine.subpixel_track_refine is True  # preset ships it on
         seq = make_textured_sequence(n_frames=3, seed=0)
         eng = Engine(cfg, seq.cam)
         results = [eng.process_frame(l, r) for l, r in seq.frames]

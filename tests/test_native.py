@@ -1,5 +1,5 @@
 """Cross-language oracle tests: the native C++ kernels vs the jnp/Pallas
-TPU formulations — the reference repo's scalar-vs-SIMD equivalence pattern
+Fixed-shape formulations — the reference repo's scalar-vs-SIMD equivalence pattern
 extended across languages."""
 import numpy as np
 import jax.numpy as jnp
@@ -69,7 +69,7 @@ class TestTrackingSAD:
 
 class TestFASTOracle:
     def test_fast_matches_dense_jnp(self, rng):
-        """The dense TPU corner mask must agree with the scalar C++ FAST."""
+        """The dense JAX corner mask must agree with the scalar C++ FAST."""
         from rso.frontend.detect import fast_corner_mask
         from rso.synthetic import make_sequence
 

@@ -4,7 +4,7 @@ The reference ships one real rectified stereo pair with a known ground-truth
 correspondence L(646,263) <-> R(624,263) and builds its only meaningful test
 on it: the SAD at the true correspondence must be a strict local minimum
 (computeSAD8_unittest.cpp:20-41).  These tests re-assert that contract on the
-TPU build's kernels and drive the detector / matcher / descriptor paths on
+rso's kernels and drive the detector / matcher / descriptor paths on
 real texture — the synthetic blob scenes cannot falsify descriptor
 discriminativeness, real pixels can.
 """

@@ -81,8 +81,8 @@ class TestWindowSharded:
 
     def test_no_cross_window_collectives(self):
         """The compiled LM loop must contain NO collective whose replica
-        group spans two 'win' rows — the DCN-efficiency claim, checked on
-        the HLO itself (same method as tools/eval_ba_comm.py)."""
+        group spans two 'win' rows — no cross-window traffic, checked on
+        the compiled HLO itself."""
         import re
 
         from rso.ba.window_sharded import _pad_axis, _sharded_solve, \

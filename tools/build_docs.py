@@ -1,8 +1,7 @@
 """Build the HTML documentation site into site/ (the C23 docs target).
 
 Renders README.md, docs/*.md, and the top-level reports (BASELINE, PARITY)
-with python-markdown into a small static site with an index — the TPU
-build's equivalent of the reference's doxygen/gh-pages task (.travis.sh:24-61)
+with python-markdown into a small static site with an index — rso's equivalent of the reference's doxygen/gh-pages task (.travis.sh:24-61)
 without network or doxygen dependencies.
 
 Usage: python tools/build_docs.py [--out site/]
@@ -18,7 +17,7 @@ PAGES = [
     ("index", "README.md", "Overview"),
     ("architecture", "docs/ARCHITECTURE.md", "Architecture"),
     ("modes", "docs/MODES.md", "Mode matrix & envelopes"),
-    ("perf", "docs/PERF.md", "Performance architecture"),
+    ("perf", "PERF.md", "Performance on the GPU"),
     ("gui", "docs/GUI.md", "GUI & live view"),
     ("marginalization", "docs/MARGINALIZATION.md", "Marginalization study"),
     ("flow-fault", "docs/FLOW_SCAN_FAULT.md", "Flow-mode scan fault"),

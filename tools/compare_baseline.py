@@ -153,8 +153,8 @@ def compare_scene(scene, n_frames, seed, refine, width=1241, height=376,
                                      corridor=(8.0, 3.0), seed=seed)
         cfg = textured_config()
         max_sad = 1500.0
-    cfg_ref = cfg.replace(tpu=dataclasses.replace(
-        cfg.tpu, subpixel_track_refine=True))
+    cfg_ref = cfg.replace(engine=dataclasses.replace(
+        cfg.engine, subpixel_track_refine=True))
 
     runs = {}
     ctx = (tempfile.TemporaryDirectory() if keep_dir is None

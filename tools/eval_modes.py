@@ -6,7 +6,7 @@ ifmSAD/ifmDescBF/ifmDescWin/ifmOpticalFlow; semantics
 stage4_match_consecutive.cpp:71-801), chunked, on either the blob scene or
 the textured corridor (real-image statistics).
 
-Usage: tools/tpu_run.sh tools/eval_modes.py [--frames N] [--scene blob|textured]
+Usage: python tools/eval_modes.py [--frames N] [--scene blob|textured]
        [--speed S] [--skip 0,3] [--json OUT.json]
 """
 import argparse

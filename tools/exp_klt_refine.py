@@ -6,10 +6,9 @@ textured corridor every seed (0.106 vs 0.138 mean), but the refreshed
 subpixel_track_refine=True) measured KLT at 0.258 where round-4's FASTER
 scored 0.128.  Two variables changed at once: the detector AND the horizon
 /refine setting.  This isolates them: textured corridor, 120 frames,
-{FASTER, KLT} x {refine off, on}, 2 seeds, one TPU claim.
+{FASTER, KLT} x {refine off, on}, 2 seeds, one process.
 
-Usage: TPU_RUN_TIMEOUT=3500 PYTHONPATH=/root/repo bash tools/tpu_run.sh \
-           tools/exp_klt_refine.py [--json docs/artifacts/klt_refine_r5.json]
+Usage: python tools/exp_klt_refine.py [--json docs/artifacts/klt_refine_r5.json]
 """
 import argparse
 import dataclasses
@@ -35,7 +34,7 @@ def run(seed, dm, refine, W, H, N, cam):
     base = textured_config()
     cfg = base.replace(
         detect=dataclasses.replace(base.detect, detect_method=dm),
-        tpu=dataclasses.replace(base.tpu, subpixel_track_refine=refine))
+        engine=dataclasses.replace(base.engine, subpixel_track_refine=refine))
     eng = Engine(cfg, cam)
     L = jnp.stack([jnp.asarray(l) for l, _ in seq.frames])
     R = jnp.stack([jnp.asarray(r) for _, r in seq.frames])

@@ -1,6 +1,6 @@
 """e2e ATE at topk_recall 0.95 vs 1.00, 3 scene seeds, default SAD mode.
-Decision data for TPUParams.topk_recall (tools/exp_topk_recall.py has the
-per-pass timing; this has the accuracy side)."""
+Decision data for EngineParams.topk_recall (the accuracy side; on a GPU
+approx_max_k is an exact top-k at any recall target)."""
 import sys, os, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import dataclasses
@@ -25,7 +25,7 @@ def main():
         R = jnp.stack([jnp.asarray(r) for _, r in seq.frames])
         for recall in (0.95, 1.0):
             cfg = synthetic_config()
-            cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu,
+            cfg = cfg.replace(engine=dataclasses.replace(cfg.engine,
                                                       topk_recall=recall))
             eng = Engine(cfg, cam)
             res = eng.process_chunk(L, R)
